@@ -1,6 +1,6 @@
-"""ptx — a TPU-native differentiable CSG path tracer.
+"""ptx — a differentiable CSG path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-conception of the classic CSG span-tracing
+A from-scratch JAX/XLA re-conception of the classic CSG span-tracing
 renderer (reference: programmerjake/path-trace, C++/pthreads/TCP).  The
 reference's architecture — virtual-dispatch span iterators, per-ray recursion,
 a pthread block pool, and an ASCII TCP render farm — is replaced by an
@@ -9,7 +9,7 @@ array-first design:
 - scenes compile to SoA parameter tables + a flattened CSG tape
   (:mod:`ptx.geom.tape`),
 - primitive intersection and the union/intersection/difference span algebra
-  are vectorized sorted-interval kernels over fixed-capacity masked span
+  are vectorized sorted-interval passes over fixed-capacity masked span
   lists (:mod:`ptx.geom.spans`),
 - the recursive shading loop becomes a masked fixed-depth ``lax.scan``
   wavefront with one stochastic path per ray (:mod:`ptx.integrate.trace`),

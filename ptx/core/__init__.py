@@ -1,1 +1,1 @@
-from ptx.core import constants, linalg, rng  # noqa: F401
+"""Vector/affine math, numeric constants and random numbers."""

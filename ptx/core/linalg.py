@@ -27,9 +27,10 @@ import jax.numpy as jnp
 
 # einsum/matmul precision: HIGHEST everywhere in this module.  These
 # contractions build TRANSFORMS (rays into object space, normals back,
-# affine composition/inversion) — at the TPU MXU's default bf16 passes
-# they would carry ~0.1-0.4% error into geometry, the same class as the
-# round-5 plane-interval bug (ptx/geom/fasthit._leaf_intervals_grouped).
+# affine composition/inversion) — at default precision a matmul unit
+# runs bf16 passes or TF32 (GPU tensor cores), which would carry
+# ~0.1-0.4% error into geometry (see ptx/geom/fasthit.py
+# _leaf_intervals_grouped for the plane-interval case).
 _HP = jax.lax.Precision.HIGHEST
 
 from ptx.core.constants import EPS

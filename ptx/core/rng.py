@@ -8,7 +8,7 @@ Two generators:
    sharding.  The reference instead shares ONE mutable LCG across all
    render threads without synchronization (path-trace.h:56,
    src/path-trace.cpp:4), so its multithreaded output is unreproducible by
-   construction; a counter-based design is the TPU-native fix.
+   construction; a counter-based design is the fix.
 
 2. :class:`ReferenceLCG` — a bit-exact reimplementation of the reference's
    generator (``v = 214013*v + 2531011`` over 64 bits, returning the high

@@ -40,8 +40,8 @@ against the span-merge path in tests/test_fasthit.py.
 Three evaluation strategies share the same semantics:
 
 - **dense** (small L): materialize the full (2L, L, B) compare tensors and
-  per-leaf normal stacks in one shot — maximum fusion for the demo-scale
-  scenes the Pallas kernel also covers;
+  per-leaf normal stacks in one shot — maximum fusion for demo-scale
+  scenes;
 - **candidate-blocked** (large L, any tape): scan candidates in fixed-size
   blocks (peak memory O(block·L·B)) carrying a running argmin, then
   recompute the winner's normal with the O(1) selected-leaf replay
@@ -53,22 +53,11 @@ Three evaluation strategies share the same semantics:
   for rays outside the coverage at EPS, else the merged-chain exit via a
   fixed-point ``E ← max{e : s ≤ E}`` (2-4 masked-max passes on real
   scenes) — O(L·hops) work vs the O(L log L) sorted sweep it replaced
-  (kept as the ``sort``/``kernel`` modes) and the O(L²) fold both other
-  paths pay.  See :func:`_compile_union_sweep`.  On TPU the production
-  mode is ``mega`` (ptx.ops.megasweep, round 4): ONE Pallas launch runs
-  interval construction + the same fixpoint + payload match + the
-  replay forward entirely in VMEM, with Morton-cluster bound culling and
-  interval-set slot algebra for compound gadgets — 4-16× the fixpoint
-  mode at L≈256 (45/39 Mrays/s fwd spheres/gadget-268 vs 11/2.5);
-  gradients route through the decision-frozen :func:`_mega_replay`
-  custom VJP.  Untransformed sphere/plane leaves only; others keep
-  ``fixpoint``.
+  (kept as the ``sort`` mode) and the O(L²) fold both other
+  paths pay.  See :func:`_compile_union_sweep`.
 """
 
 from __future__ import annotations
-
-import functools
-import os
 
 import numpy as np
 import jax
@@ -82,18 +71,15 @@ from ptx.geom import tape
 _PAD_T = np.float32(3e20)
 
 # dense path above this leaf count pays quadratic memory; switch to the
-# candidate-blocked scan (tunable per compile via candidate_block).
-# Retuned on hardware (round 2, /tmp scale sweeps at B=65k): dense wins
-# through L=128 (L=64: 7.4 vs 5.7 Mrays/s; L=128: 3.2 vs 2.8) but its
+# candidate-blocked scan (tunable per compile via candidate_block).  Its
 # (2L, L, B) compare tensors reach ~4 GB at L=128 × B=131k render
-# chunks, so the default stays memory-safe at 64; block 32 beats the old
-# block 8 by ~2× at every size measured.
+# chunks, so the default stays memory-safe at 64.
 _DENSE_L_MAX = 64
 _DEFAULT_CANDIDATE_BLOCK = 32
 
 # union-decomposable tapes above this leaf count route to the
-# sorted-interval sweep (O(L log L) vs the dense/blocked O(L²) fold);
-# below it the dense fold / Pallas kernel win on constant factors.
+# union sweep (O(L·hops) vs the dense/blocked O(L²) fold); below it the
+# dense fold wins on constant factors.
 _SWEEP_L_MIN = 24
 # a top-level union operand ("group") may be a compound CSG gadget of up
 # to this many leaves — its coverage intervals come from a small local
@@ -170,10 +156,10 @@ def _leaf_intervals(leaves, params, ox, oy, oz, dx, dy, dz,
                     with_normals=True):
     """Per-leaf boundary intervals, batch-minor SoA.
 
-    TPU lanes run along the LAST axis; every per-ray quantity is kept as
-    (B,)-component vectors and structural axes (leaf, candidate) lead —
-    so (2L, L, B) compare tensors tile the 128-lane axis perfectly
-    instead of padding a 13-wide minor dim.
+    Every per-ray quantity is kept as (B,)-component vectors and
+    structural axes (leaf, candidate) lead, so the batch is the
+    contiguous minor axis of every (2L, L, B) compare tensor instead of
+    a 13-wide minor dim.
 
     Returns ``(t0, t1)`` of shape (L, B) and, when ``with_normals``,
     the start/end normal component stacks ((L, B) × 3 each)."""
@@ -315,14 +301,10 @@ def _leaf_intervals_grouped(leaves, params, ox, oy, oz, dx, dy, dz):
         dp = params["plane_d"][gi]                           # (Lp,)
         o_mat = jnp.stack([ox, oy, oz])                      # (3, B)
         d_mat = jnp.stack([dx, dy, dz])
-        # precision=HIGHEST is CORRECTNESS, not tuning: the TPU MXU's
-        # default bf16 passes gave plane boundaries ~0.1-0.4% error —
-        # which mis-ordered close box-corner entries and voided near-EPS
-        # ground exits.  The entire round-4 "0.11% megasweep flip class"
-        # was THIS path being wrong while the kernel was right: on every
-        # f64-adjudicated flip lane the mega kernel matched the span
-        # oracle and the CPU fixpoint exactly (round 5; the class-aware
-        # gate in tools/mega_check.py now pins the corrected behavior).
+        # precision=HIGHEST is CORRECTNESS, not tuning: a reduced-
+        # precision f32 matmul (bf16 passes, or TF32 on GPU tensor cores)
+        # gives plane boundaries ~0.1-0.4% error — which mis-orders close
+        # box-corner entries and voids near-EPS ground exits.
         hp = jax.lax.Precision.HIGHEST
         divisor = jnp.matmul(n, d_mat, precision=hp)         # (Lp, B)
         numer = -dp[:, None] - jnp.matmul(n, o_mat, precision=hp)
@@ -375,19 +357,18 @@ def _bits_at(node, leaf_pos, bits):
     return kids[0] & ~kids[1]
 
 
-def compile_fast_hit(plan, params_ref=None, candidate_block: int | None = None,
+def compile_fast_hit(plan, candidate_block: int | None = None,
                      sweep: bool | None = None,
-                     sweep_kernel: bool | str | None = None,
-                     sweep_mode: str | None = None):
+                     sweep_mode: str = "fixpoint"):
     """Compile a tape plan (from tape.compile_geometry) into
     ``hit_fn(params, origin, dir) -> first-hit dict`` (same contract as
     ptx.integrate.trace.first_hit).
 
     Scaling: the dense path materializes (2L, L, B) compare tensors plus
     (L, B) normal stacks — perfect for the demo's L=13, quadratic-memory
-    hostile at L≈100+ (VERDICT round-1 missing #2).  Large union-only
-    tapes take the O(L log L) sorted-interval sweep
-    (:func:`_compile_union_sweep`); other large tapes scan candidates in
+    hostile at L≈100+.  Large union-decomposable tapes take the union
+    sweep (:func:`_compile_union_sweep`, ``sweep_mode`` "fixpoint" or
+    the sorted "sort" cross-check); other large tapes scan candidates in
     ``candidate_block``-size blocks with a running argmin — see module
     docstring.  ``sweep``/``candidate_block`` force a strategy (tests
     cross-check all of them against the span-merge oracle,
@@ -403,9 +384,7 @@ def compile_fast_hit(plan, params_ref=None, candidate_block: int | None = None,
         sweep = (candidate_block is None and L > _SWEEP_L_MIN
                  and len(groups) > 1 and gmax <= _SWEEP_GROUP_MAX)
     if sweep:
-        return _compile_union_sweep(plan, leaves, sweep_kernel=sweep_kernel,
-                                    sweep_mode=sweep_mode,
-                                    params_ref=params_ref)
+        return _compile_union_sweep(plan, leaves, sweep_mode=sweep_mode)
     if candidate_block is None and L > _DENSE_L_MAX:
         candidate_block = _DEFAULT_CANDIDATE_BLOCK
     if candidate_block:
@@ -568,152 +547,7 @@ def _compile_blocked_hit(plan, leaves, block: int):
     return hit_fn
 
 
-def _float0_zeros(x):
-    return np.zeros(np.shape(x), jax.dtypes.float0)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
-def _mega_replay(replay, params, o3, d3, evt, entering, hit, kt, kn):
-    """Forward = the megasweep kernel's in-VMEM replay values (kt, kn);
-    backward = the exact differentiable replay's VJP at the frozen
-    decisions (evt, entering, hit)."""
-    return kt, kn
-
-
-def _mega_replay_fwd(replay, params, o3, d3, evt, entering, hit, kt, kn):
-    return (kt, kn), (params, o3, d3, evt, entering, hit, kt, kn)
-
-
-def _mega_replay_bwd(replay, res, cts):
-    params, o3, d3, evt, entering, hit, kt, kn = res
-    _, vjp = jax.vjp(
-        lambda p, o, d: replay(p, o, d, evt, entering, hit),
-        params, o3, d3)
-    gp, go, gd = vjp(cts)
-    return (gp, go, gd, _float0_zeros(evt), _float0_zeros(entering),
-            _float0_zeros(hit), jnp.zeros_like(kt), jnp.zeros_like(kn))
-
-
-_mega_replay.defvjp(_mega_replay_fwd, _mega_replay_bwd)
-
-
-def _compile_mega_sweep(plan, leaves, params_ref, interpret=False):
-    """Fused megasweep first hit (strategy 3, ``mega`` mode): ONE Pallas
-    launch constructs leaf intervals in VMEM, runs the chain-exit
-    fixpoint, and equality-matches the winner — with runtime
-    bounding-sphere cluster culling per (cluster, ray-block).  Semantics
-    identical to the fixpoint mode cell-for-cell; see ptx.ops.megasweep.
-    Selection is stop-gradient; the winner's differentiable t/normal come
-    from the selected-leaf replay, as in every large-scene path."""
-    from ptx.geom import hitreplay
-    from ptx.ops.megasweep import build_mega_sweep
-
-    L = len(leaves)
-    parity_np = np.array([p for _, p in leaves], np.float32)
-    replay = hitreplay.build_hit_replay(leaves, parity_np)
-    mega = build_mega_sweep(plan, leaves, eps=float(EPS),
-                            params_ref=params_ref, interpret=interpret)
-
-    def hit_fn(params, origin, direction):
-        batch_shape = origin.shape[:-1]
-        flat = lambda a: a.reshape((-1,))
-        ox, oy, oz = (flat(origin[..., i]) for i in range(3))
-        dx, dy, dz = (flat(direction[..., i]) for i in range(3))
-
-        (t_star, entering, m_start, m_end, found,
-         kt, kn, kmat, hit) = mega(params, ox, oy, oz, dx, dy, dz)
-
-        use_start = m_start < L
-        leaf_star = jnp.where(use_start, m_start, jnp.minimum(m_end, L - 1))
-        evt = jnp.where(hit, jnp.where(use_start, leaf_star, L + leaf_star),
-                        0).astype(jnp.int32)
-
-        # In-kernel replay FORWARD + XLA replay BACKWARD: the winner's
-        # t/normal are already evaluated in VMEM by the kernel (the XLA
-        # replay's per-lane (B, 26) row gathers were 10.8 of 15 ms/step
-        # at L=256 — tools/mega_check round 4); gradients still flow
-        # through the exact differentiable replay, evaluated only inside
-        # the custom-VJP backward (same decision-frozen pattern as
-        # trace._make_manual_bounce).
-        o3 = origin.reshape(-1, 3)
-        d3 = direction.reshape(-1, 3)
-        t_rep, normal = _mega_replay(replay, params, o3, d3,
-                                     evt, entering, hit, kt, kn)
-
-        unflat = lambda a: a.reshape(batch_shape)
-        return {
-            "t": unflat(t_rep),
-            "normal": normal.reshape(batch_shape + (3,)),
-            "mat_id": unflat(jnp.where(hit, kmat, 0)),
-            "entering": unflat(entering),
-            "hit": unflat(hit),
-            "_evt": unflat(evt),
-        }
-
-    return hit_fn
-
-
-def compile_mega_bounce(plan, params_ref, material_meta, mats_np,
-                        interpret=None):
-    """Fused mega bounce (hit + shade + scatter in the ONE megasweep
-    launch) with the flagship bounce_fn contract
-    (ptx.ops.bounce_kernel.build_bounce_kernel) — the large-scene
-    forward's XLA shading/sampler fusion islands (~0.6 ms/bounce at
-    L=256, tools/mega_prof.py) collapse into the kernel.  Returns None
-    when the tape is not mega-eligible; material eligibility (const
-    non-emissive slots) is the caller's check, as for the flagship."""
-    import jax as _jax
-
-    from ptx.ops.megasweep import build_mega_sweep, mega_eligible
-
-    leaves = collect_leaves(plan)
-    if not mega_eligible(plan, leaves):
-        return None
-    if interpret is None:
-        interpret = _jax.default_backend() != "tpu"
-    L = len(leaves)
-    const_idx, n_materials = material_meta
-    mega = build_mega_sweep(
-        plan, leaves, eps=float(EPS), params_ref=params_ref,
-        interpret=interpret,
-        bounce_meta=(const_idx, n_materials, list(mats_np)))
-
-    def bounce_fn(params, o, d, thr, strength, alive, u_coin, u3,
-                  in_depth):
-        flat = lambda a: a.reshape(-1)
-        (t_star, entering, m_start, m_end, found, t_rep, normal, kmat,
-         hit, o2, d2, thr2, st2, bflags, u_sel) = mega(
-            params,
-            flat(o[..., 0]), flat(o[..., 1]), flat(o[..., 2]),
-            flat(d[..., 0]), flat(d[..., 1]), flat(d[..., 2]),
-            flat(thr[..., 0]), flat(thr[..., 1]), flat(thr[..., 2]),
-            flat(strength), flat(alive.astype(jnp.float32)),
-            flat(u_coin), flat(u3[..., 0]), flat(u3[..., 1]),
-            flat(u3[..., 2]), in_depth)
-        use_start = m_start < L
-        leaf_star = jnp.where(use_start, m_start,
-                              jnp.minimum(m_end, L - 1))
-        evt = jnp.where(hit, jnp.where(use_start, leaf_star,
-                                       L + leaf_star), 0)
-        fl = bflags
-        return {
-            "t": t_rep,
-            "o2": o2, "d2": d2, "thr2": thr2, "strength2": st2,
-            "hit": (fl & 1).astype(bool),
-            "entering": ((fl >> 1) & 1).astype(bool),
-            "take_transmit": ((fl >> 2) & 1).astype(bool),
-            "scatter_alive": ((fl >> 3) & 1).astype(bool),
-            "alive2": ((fl >> 4) & 1).astype(bool),
-            "evt": evt.astype(jnp.int32),
-            "mat_id": kmat,
-            "u_sel": u_sel,
-        }
-
-    return bounce_fn
-
-
-def _compile_union_sweep(plan, leaves, sweep_kernel: bool | str | None = None,
-                         sweep_mode: str | None = None, params_ref=None):
+def _compile_union_sweep(plan, leaves, sweep_mode: str = "fixpoint"):
     """Sorted-interval sweep first hit for union-decomposable tapes
     (strategy 3) — ``Union(g₁ … g_K)`` where each group ``g`` is a leaf or
     a small CSG gadget (≤ _SWEEP_GROUP_MAX leaves): the reference's
@@ -746,8 +580,9 @@ def _compile_union_sweep(plan, leaves, sweep_kernel: bool | str | None = None,
       ``argmin over (root_after != root_before) & (t ≥ EPS)``.
 
     Work per ray: O(L·m) local folds + one ≤L-key sort + one log-depth
-    prefix scan — versus the O(L²) fold the dense/blocked paths pay (the
-    measured compute wall at L≳128).  Every boundary of the root solid is
+    prefix scan — versus the O(L²) fold the dense/blocked paths pay.
+    The default ``fixpoint`` mode drops the global sort as well (see its
+    block comment).  Every boundary of the root solid is
     bitwise some leaf's ``t0``/``t1`` (sorts/max/min are value-preserving),
     so the winner's payload is recovered from the *unsorted* leaf
     intervals by equality match — min leaf index among starts first, then
@@ -764,54 +599,13 @@ def _compile_union_sweep(plan, leaves, sweep_kernel: bool | str | None = None,
     replay = hitreplay.build_hit_replay(leaves, parity_np)
     NEG = np.float32(-3e20)
 
-    # post-sort stage: the Pallas sweep-select kernel collapses the
-    # prefix-max scan + break/min candidate reduces + winner-payload
-    # equality match into ONE launch / one HBM pass per operand
-    # (ptx.ops.sweep_kernel docstring; the log-L associative_scan
-    # slice/pad passes were the measured dominant post-sort cost at
-    # L=256 — STATUS.md round 2).  sweep_kernel: True/False force it,
-    # "interpret" runs the kernel in interpreter mode (CPU cross-tests),
-    # None → env PTX_SWEEP_KERNEL, else on iff running on TPU.
-    # mode resolution (newest first): explicit sweep_mode > explicit
-    # sweep_kernel (back-compat: True/"interpret" → the Pallas select
-    # kernel, False → the jnp sort pipeline) > env PTX_SWEEP_MODE >
-    # "fixpoint" — the sort-free chain-exit path below, the production
-    # default since it removes the sort entirely (see its block comment).
-    from ptx.ops.megasweep import mega_eligible
-    if sweep_mode is None:
-        if sweep_kernel in (True, "interpret"):
-            sweep_mode = "kernel"
-        elif sweep_kernel is False:
-            sweep_mode = "sort"
-        else:
-            envk = os.environ.get("PTX_SWEEP_KERNEL")
-            if envk == "1":
-                sweep_mode = "kernel"
-            else:
-                # production default: the fused megasweep kernel when the
-                # tape is pure untransformed sphere/plane leaves on TPU
-                # (one Pallas launch replaces the whole interval +
-                # fixpoint + payload pipeline — ptx.ops.megasweep);
-                # fixpoint otherwise
-                default = ("mega" if (jax.default_backend() == "tpu"
-                                      and mega_eligible(plan, leaves))
-                           else "fixpoint")
-                sweep_mode = os.environ.get("PTX_SWEEP_MODE", default)
-    if sweep_mode == "mega" and not mega_eligible(plan, leaves):
-        sweep_mode = "fixpoint"        # compound/transformed leaves
-    assert sweep_mode in ("fixpoint", "sort", "kernel", "mega"), sweep_mode
-    kernel_interpret = sweep_kernel == "interpret"
-
-    if sweep_mode == "mega":
-        return _compile_mega_sweep(plan, leaves, params_ref,
-                                   interpret=kernel_interpret)
+    assert sweep_mode in ("fixpoint", "sort"), sweep_mode
 
     # compile-time group table: leaf groups batch into one direct slice;
     # compound groups batch BY STRUCTURE CLASS — same op tree ⇒ identical
     # membership fold, so all G instances run as ONE (G, 2m, m, B) fold +
     # ONE (G, 2m, B) sort per class instead of per-group ops (a 112-gadget
-    # scene is 3 classes, not 112 op groups — the per-group dispatch was
-    # the measured gadget-vs-sphere throughput gap at equal L, STATUS.md).
+    # scene is 3 classes, not 112 op groups).
     leaf_pos = {id(lf): i for i, (lf, _) in enumerate(leaves)}
     leaf_rows = []
     classes: dict = {}          # structure sig → [rep_plan, rep_pos, [gidx]]
@@ -904,8 +698,7 @@ def _compile_union_sweep(plan, leaves, sweep_kernel: bool | str | None = None,
             # one hop, so iterations = chain "hop diameter" (2-4 on real
             # scenes: a transmission ray sits inside one gadget), each a
             # fused masked max over (S, B) — one HBM pass — versus the
-            # sort's ~log²S passes (the measured 3.1 ms wall at L=256,
-            # STATUS.md).  Termination is guaranteed: E strictly grows
+            # sort's ~log²S passes.  Termination is guaranteed: E strictly grows
             # for some ray every iteration and takes values from the
             # finite end set.  Selection is already stop-gradient.
             has_below = jnp.any(s < EPS, axis=0)              # (B,)
@@ -935,21 +728,6 @@ def _compile_union_sweep(plan, leaves, sweep_kernel: bool | str | None = None,
                 jnp.where(t0 == t_star[None, :], lf, L), axis=0)
             m_end = jnp.min(
                 jnp.where(t1 == t_star[None, :], lf, L), axis=0)
-        elif sweep_mode == "kernel":
-            # XLA sorts; ONE kernel launch then does prefix + selection +
-            # payload (pad-free when S/B are already tile-aligned).  The
-            # kernel can also sort in VMEM (bitonic, sort=True) — measured
-            # SLOWER at L=256 (7.24 vs 7.97 Mrays/s fwd): 36 shift-select
-            # passes over (256, 512) blocks are VMEM-bandwidth-bound and
-            # cost more than lax.sort's 3.1 ms.  Kept for small-S cases
-            # and as the negative result.
-            from ptx.ops.sweep_kernel import build_sweep_select
-            s_s, e_s = jax.lax.sort((s, e), dimension=0, num_keys=1,
-                                    is_stable=True)
-            sel = build_sweep_select(s.shape[0], L, float(EPS),
-                                     interpret=kernel_interpret,
-                                     sort=False)
-            t_star, entering, m_start, m_end, found = sel(s_s, e_s, t0, t1)
         else:
             # leaf identity does NOT ride the sort or the scan: the
             # winner's leaf is recovered afterwards from the UNSORTED

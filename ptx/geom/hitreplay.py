@@ -7,14 +7,14 @@ that boundary: a per-lane gather of one packed leaf-parameter row plus one
 dual-formula (sphere|plane) evaluation.  O(1) leaf work per lane instead
 of re-walking all L leaves.
 
-This is the shared backward engine: the Pallas first-hit kernel's custom
-VJP routes its cotangents through it (ptx.ops.fasthit_kernel), and the
-full-bounce manual VJP (ptx.integrate.trace) replays the whole bounce with
-it, so the scan's reverse pass never re-runs the 2L·L candidate fold.
+This is the shared backward engine: the blocked and union-sweep first-hit
+paths take their differentiable payload from it, and the full-bounce
+manual VJP (ptx.integrate.trace) replays the whole bounce with it, so the
+scan's reverse pass never re-runs the 2L·L candidate fold.
 Selection indices are piecewise-constant in the scene parameters, so
 gradients through the replay equal gradients through the live evaluation
 (the argmin winner is locally stable) — cross-checked in
-tests/test_pallas_kernel.py and tests/test_gradients.py.
+tests/test_fasthit.py and tests/test_gradients.py.
 
 Row layout (R = 26):
   sphere: [cx cy cz r  0        W(12) N(9)]
@@ -72,11 +72,10 @@ def leaf_rows(leaves, params):
         tail = jnp.broadcast_to(eye_tail, (len(gi), 21))
         parts.append(jnp.concatenate([n, d, inv_mag, tail], axis=1))
         order += idx_p
-    # transformed leaves: batched by (kind, chain length) — the per-leaf
-    # compose/inverse/concat chain was an O(L) op-graph that measured
-    # fwd+bwd 19.9 vs 51.9 Mrays/s on the transformed L=256 megasweep
-    # (round 5); one batched compose+inverse per group restores the
-    # packed-row economics (linalg ops broadcast over leading axes)
+    # transformed leaves: batched by (kind, chain length) — one batched
+    # compose+inverse per group instead of an O(L) per-leaf
+    # compose/inverse/concat op-graph (linalg ops broadcast over leading
+    # axes)
     xf_groups: dict = {}
     for i in idx_o:
         lf, _p = leaves[i]
@@ -124,11 +123,9 @@ def build_hit_replay(leaves, parity_np=None):
     if parity_np is None:
         parity_np = np.array([p for _, p in leaves], np.float32)
     # constant per-leaf aux columns appended to the packed rows so the
-    # whole replay rides ONE per-lane gather: TPU gathers cost per ROW
-    # regardless of width (~9-40 ns/row), so the 1-wide is_sphere and
-    # parity gathers each cost as much as the whole (B, 26) row gather —
-    # they were 2 of the 6.5 ms/step the backward recompute spent in
-    # gathers at L=256 (tools/mega_prof.py, round 4)
+    # whole replay rides ONE per-lane gather instead of three (the 1-wide
+    # is_sphere and parity columns would each be a per-lane gather of
+    # their own)
     aux_np = np.stack([is_sphere_np.astype(np.float32),
                        parity_np.astype(np.float32)], axis=1)    # (L, 2)
 
@@ -136,11 +133,7 @@ def build_hit_replay(leaves, parity_np=None):
         from ptx.ops.tableops import table_lookup_aug
         leaf_idx = jnp.where(best_i >= L, best_i - L, best_i)
         is_start = best_i < L
-        # ONE (B, 28) fetch with MXU-matmul transpose.  The one-hot
-        # MXU forward (onehot_fwd=True) measured NEUTRAL at L=256/268
-        # (33.6 vs 32.9 / 30.2 vs 30.6 Mrays/s fwd+bwd wall) once the
-        # row was packed — the single gather is no longer the backward
-        # bottleneck; left available in tableops for bigger tables
+        # ONE (B, 28) fetch with a one-hot-matmul transpose
         row = table_lookup_aug(leaf_rows(leaves, params),
                                jnp.asarray(aux_np), leaf_idx)
         sph = row[:, 26] > 0.5

@@ -7,8 +7,8 @@ merge child streams with two-pointer walks
 (``/root/reference/include/span.h``, ``src/union.cpp:84-134``,
 ``src/intersection.cpp:84-130``, ``src/difference.cpp:84-135``).
 
-That streaming design is hostile to TPUs (virtual dispatch, data-dependent
-iteration).  Here a span *list* is a fixed-capacity masked SoA batch — every
+That streaming design is hostile to accelerators (virtual dispatch,
+data-dependent iteration).  Here a span *list* is a fixed-capacity masked SoA batch — every
 ray carries ``K`` slots — and every CSG combinator is one **event merge**:
 
 1. each span contributes an *open* and a *close* event ``(t, payload)``;

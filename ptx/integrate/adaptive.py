@@ -7,7 +7,7 @@ interpolated, otherwise it splits 4-way and traces more pixels
 per-pixel-divergent — poison for a SIMD machine — and it *interpolates*
 pixels it never traced.
 
-The TPU-native re-conception keeps the objective (samples where variance
+The array-first re-conception keeps the objective (samples where variance
 is) with uniform-shaped work:
 
 1. a dense base pass renders every pixel at ``spp_base``, tracking
@@ -53,7 +53,7 @@ def _base_pass(scene, params, cam: Camera, key, spp: int, depth: int,
                rays_per_chunk: int = 2 ** 21):
     """Dense base pass, chunked through row bands so full-resolution frames
     (the reference's 1920×1080 default) never dispatch a frame×spp tensor
-    in one go (VERDICT round-1 weak #5)."""
+    in one go."""
     rows_per_chunk = max(1, min(cam.height,
                                 rays_per_chunk // max(1, cam.width * spp)))
     s1_parts, s2_parts = [], []
@@ -130,7 +130,7 @@ def render_adaptive(scene: CompiledScene, cam: Camera, key,
     Total budget ≈ spp_base + rounds·frac·spp_refine samples/pixel,
     concentrated on the highest-variance ``frac`` of pixels each round.
 
-    Durability/scale composition (VERDICT r2 #8 — the reference's
+    Durability/scale composition (the reference's
     adaptive sampler was its *default* driver, test.cpp:325-518, so it
     must compose with the rest of the machinery):
 
@@ -178,7 +178,7 @@ def render_adaptive(scene: CompiledScene, cam: Camera, key,
 
 
 # --------------------------------------------------------------------------
-# farm-tile adaptive rendering (VERDICT r3 #6)
+# farm-tile adaptive rendering
 # --------------------------------------------------------------------------
 # In the reference, distributed rendering IS adaptive rendering: the farm
 # server constructs a RenderBlock for every requested block and its run()

@@ -56,10 +56,9 @@ def _render_rows_fori(scene: CompiledScene, params, cam: Camera, key,
     """All ``n_chunks · spp_chunk`` samples of a row band in ONE dispatch:
     a device-side fori_loop accumulates sample chunks into the band image.
 
-    Why: on this backend a HOST loop over chunks with (rows, W, 3)
-    outputs pays ~10 ms of dispatch/runtime overhead per call — measured
-    155 vs 618 Mrays/s for identical traces (tools/wall_experiments.py).
-    Keys fold exactly as the host-chunked path's ``fold(key, s, y0)``
+    Why: a HOST loop over chunks pays one dispatch and one (rows, W, 3)
+    output allocation per chunk; the device-side loop pays them once per
+    band.  Keys fold exactly as the host-chunked path's ``fold(key, s, y0)``
     (s = chunk·spp_chunk), so the estimate matches it chunk-for-chunk.
     ``y0`` is a traced argument: one executable serves every band."""
     ys = y0 + jnp.arange(rows)

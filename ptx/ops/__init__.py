@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot compute path."""
+"""Table lookups and the image gather used by the shading stack."""

@@ -1,388 +1,22 @@
-"""Image-texture gather with an MXU-histogram backward.
+"""Bounds-masked nearest-texel image gather.
 
-``img[yi, xi]`` is a nearest-texel gather; XLA transposes it to a
-scatter-add into the image, and TPU scatters serialize — measured at
-2.34 ms of the 13.5 ms bench step (tools/step_breakdown.py, round 2),
-the single largest remaining cost after the fused bounce kernels.
-
-:func:`image_gather` keeps the cheap gather forward and hand-writes the
-transpose as a Pallas **histogram kernel**: for each 8×128 lane tile it
-builds, per sublane row, a one-hot row mask ``OHy (H, 128)`` and a
-column-one-hot × value matrix ``Wv (C·W, 128)``, and accumulates
-``OHy @ Wvᵀ`` into a VMEM-resident ``(H, C·W)`` accumulator with the
-MXU — the whole image cotangent never touches HBM until the final
-block write, and nothing serializes.  (Same one-hot-transpose idea as
-ptx.ops.tableops, which is limited to tables small enough to
-materialize ``(B, R)`` one-hots in XLA; the kernel form keeps the
-one-hot in VMEM so R = H·W in the thousands is fine.)
-
-Eligible when running on TPU and the padded ``(H, C·W)`` accumulator +
-``(C·W, 128)`` operand stay comfortably in VMEM (H ≤ 1024,
-C·W_pad ≤ 2048); anything larger falls back to the scatter-add
-transpose (exactly what plain autodiff produced before).
-
-Semantics (forward) match ptx.shade.textures._get_pixel's gather:
-out-of-bounds lanes return 0 on every channel
-(/root/reference/src/image.cpp:366-396 bounds behavior); the index
-clip/bounds test is done by the caller, which passes ``inb``.
+Semantics match the reference's pixel fetch: out-of-bounds lanes return
+0 on every channel (/root/reference/src/image.cpp:366-396 bounds
+behavior).  The index clip and bounds test are done by the caller, which
+passes ``inb``.  Reverse mode is plain autodiff: the transpose of the
+gather is a scatter-add of the masked cotangent into the image.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
-import numpy as np
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-_T_ROWS = 8          # f32 min tile: lane blocks are (8, 128) = 1024 lanes
-_LANES = _T_ROWS * 128
 
 
-def _hist_kernel(y_ref, x_ref, *refs, H, W_pad, C):
-    """Accumulate Σ_lanes onehot(y) ⊗ onehot(x) ⊗ val into acc (H, C·W_pad).
-
-    Column layout: j = c·W_pad + x.  Lanes with y outside [0, H) (the
-    caller's out-of-bounds / padding sentinel −1) match no one-hot row
-    and contribute nothing.
-    """
-    val_refs, acc_ref = refs[:-1], refs[-1]
-    first = pl.program_id(0) == 0
-
-    # Mosaic iota must be integer-typed; compares happen in f32 (exact for
-    # texel indices ≪ 2²⁴)
-    iota_h = jax.lax.broadcasted_iota(
-        jnp.int32, (H, 128), 0).astype(jnp.float32)
-    iota_w = jax.lax.broadcasted_iota(
-        jnp.int32, (W_pad, 128), 0).astype(jnp.float32)
-
-    acc = jnp.zeros((H, C * W_pad), jnp.float32)
-    dims = (((1,), (1,)), ((), ()))
-    for s in range(_T_ROWS):
-        y_row = y_ref[s:s + 1, :]                     # (1, 128) f32
-        x_row = x_ref[s:s + 1, :]
-        ohy = jnp.where(iota_h == jnp.broadcast_to(y_row, (H, 128)),
-                        1.0, 0.0).astype(jnp.bfloat16)  # (H, 128), exact
-        ohx = jnp.where(iota_w == jnp.broadcast_to(x_row, (W_pad, 128)),
-                        1.0, 0.0)                     # (W_pad, 128)
-        wv = jnp.concatenate(
-            [ohx * jnp.broadcast_to(val_refs[c][s:s + 1, :], (W_pad, 128))
-             for c in range(C)], axis=0)              # (C·W_pad, 128)
-        # hi/lo bf16 split: two DEFAULT-precision MXU passes instead of
-        # HIGHEST's ~3 (single-pass bf16 alone measured 1.1e-2 abs error
-        # on unit gradients; hi+lo carries values to ~2⁻¹⁷ relative —
-        # the one-hot operand is bf16-exact)
-        wv_hi = wv.astype(jnp.bfloat16)
-        wv_lo = (wv - wv_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        acc = acc + (jax.lax.dot_general(
-                         ohy, wv_hi, dims,
-                         preferred_element_type=jnp.float32)
-                     + jax.lax.dot_general(
-                         ohy, wv_lo, dims,
-                         preferred_element_type=jnp.float32))
-
-    prev = jnp.where(first, jnp.zeros_like(acc), acc_ref[...])
-    acc_ref[...] = prev + acc
-
-
-def _build_hist(H, W, C, interpret):
-    """hist(y, x, vals) -> (H, W, C): y/x are f32 flat (N,) texel indices
-    (−1 ⇒ skip), vals (N, C) f32.  N must be a multiple of 1024."""
-    W_pad = -(-W // 128) * 128
-    H_pad = -(-H // 8) * 8
-
-    kern = functools.partial(_hist_kernel, H=H_pad, W_pad=W_pad, C=C)
-
-    @jax.jit
-    def hist(y, x, vals):
-        n = y.shape[0]
-        shape2 = (n // 128, 128)
-        grid = n // _LANES
-        block = pl.BlockSpec((_T_ROWS, 128), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM)
-        acc_spec = pl.BlockSpec((H_pad, C * W_pad), lambda i: (0, 0),
-                                memory_space=pltpu.VMEM)
-        arrs = [y.reshape(shape2), x.reshape(shape2)]
-        arrs += [vals[:, c].reshape(shape2) for c in range(C)]
-        acc = pl.pallas_call(
-            kern,
-            grid=(grid,),
-            in_specs=[block] * (2 + C),
-            out_specs=acc_spec,
-            out_shape=jax.ShapeDtypeStruct((H_pad, C * W_pad), jnp.float32),
-            interpret=interpret,
-        )(*arrs)
-        # (H_pad, C·W_pad) → (H, C, W) → (H, W, C)
-        return acc.reshape(H_pad, C, W_pad)[:H, :, :W].transpose(0, 2, 1)
-
-    return hist
-
-
-def _hist_eligible(H, W, C):
-    return H <= 1024 and C * (-(-W // 128) * 128) <= 2048
-
-
-# ---------------------------------------------------------------------------
-# banded histogram for reference-scale images (3k equirect probes)
-# ---------------------------------------------------------------------------
-#
-# The VMEM histogram above is O(N·H·W) MXU flops — infeasible past ~2k
-# columns (a 3072×1536 probe costs petaflops).  The XLA scatter fallback
-# is latency-bound instead: ~48 ns per update row into a 75 MB operand
-# regardless of sorting/uniqueness flags (tools/scatter_bench.py; the
-# same N into a VMEM-sized operand runs 8.5 ns/row).  The binned kernel
-# removes BOTH walls: lanes are sorted by 2-D image BLOCK (XLA sort +
-# searchsorted offsets), and a scalar-prefetch Pallas kernel walks each
-# block's contiguous lane range with dynamic-trip-count DMA, accumulating
-# into a VMEM-resident (block_h, C·block_w) tile via the hi/lo bf16
-# one-hot MXU contraction.
-#
-# Why 2-D blocks and these sizes: the MXU's effective cost per lane is
-# max(block_h, 128) · block_w · C MACs — M-dim utilization (block_h/128)
-# exactly cancels any row-only banding below 128 rows, which is why a
-# row-banded v1 of this kernel measured no better than the scatter
-# (42 ns/row).  Tiling columns is what actually cuts the per-lane cost:
-# (64, 512) blocks put the flops-equivalent at N·128·512·C·2 ≈ 96 GMAC
-# for a 183k-lane 3k-probe transpose, ~1 ms of MXU plus the sort.
-
-_BLOCK_H = 64
-_BLOCK_W = 512
-_MAX_CBW = 4096          # wv (C·block_w, 128) f32 ≤ 2 MB VMEM
-
-
-def _binned_kernel(offs_ref, lanes_ref, acc_ref, scratch, sem,
-                   *, block_h, block_w, n_bx, C):
-    by = pl.program_id(0)
-    bx = pl.program_id(1)
-    b = by * n_bx + bx
-    lo = offs_ref[b]
-    hi = offs_ref[b + 1]
-    t0 = lo // _LANES
-    t1 = jnp.where(hi > lo, (hi + _LANES - 1) // _LANES, t0)
-
-    iota_h = jax.lax.broadcasted_iota(
-        jnp.int32, (block_h, 128), 0).astype(jnp.float32)
-    iota_w = jax.lax.broadcasted_iota(
-        jnp.int32, (block_w, 128), 0).astype(jnp.float32)
-    # lane position within a (8, 128) tile, as f32 (exact ≤ 2^24)
-    pos = (jax.lax.broadcasted_iota(jnp.int32, (_T_ROWS, 128), 0) * 128
-           + jax.lax.broadcasted_iota(jnp.int32, (_T_ROWS, 128), 1)
-           ).astype(jnp.float32)
-    y_base = (by * block_h).astype(jnp.float32)
-    x_base = (bx * block_w).astype(jnp.float32)
-    dims = (((1,), (1,)), ((), ()))
-
-    def tile_step(t, accs):
-        dma = pltpu.make_async_copy(
-            lanes_ref.at[:, pl.ds(t * _T_ROWS, _T_ROWS), :],
-            scratch, sem)
-        dma.start()
-        dma.wait()
-        g = pos + (t * _LANES).astype(jnp.float32)
-        valid = (g >= lo.astype(jnp.float32)) & (g < hi.astype(jnp.float32))
-        y_loc = jnp.where(valid, scratch[0] - y_base, -1.0)
-        x_loc = scratch[1] - x_base
-        accs = list(accs)
-        for s in range(_T_ROWS):
-            ohy = jnp.where(
-                iota_h == jnp.broadcast_to(y_loc[s:s + 1, :],
-                                           (block_h, 128)),
-                1.0, 0.0).astype(jnp.bfloat16)
-            ohx = jnp.where(
-                iota_w == jnp.broadcast_to(x_loc[s:s + 1, :],
-                                           (block_w, 128)),
-                1.0, 0.0)
-            for c in range(C):
-                wv = ohx * jnp.broadcast_to(
-                    scratch[2 + c][s:s + 1, :], (block_w, 128))
-                wv_hi = wv.astype(jnp.bfloat16)
-                wv_lo = (wv - wv_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-                accs[c] = accs[c] + (
-                    jax.lax.dot_general(
-                        ohy, wv_hi, dims,
-                        preferred_element_type=jnp.float32)
-                    + jax.lax.dot_general(
-                        ohy, wv_lo, dims,
-                        preferred_element_type=jnp.float32))
-        return tuple(accs)
-
-    init = tuple(jnp.zeros((block_h, block_w), jnp.float32)
-                 for _ in range(C))
-    accs = jax.lax.fori_loop(t0, t1, tile_step, init)
-    acc_ref[...] = jnp.concatenate(accs, axis=1)
-
-
-def _build_banded_hist(H, W, C, interpret):
-    """hist(y, x, vals) -> (H, W, C) for ARBITRARY image sizes: y/x f32
-    flat (N,) texel indices (−1 ⇒ skip), vals (N, C).  Lanes are sorted
-    by 2-D image block here (one XLA sort + one packed row gather),
-    offsets via searchsorted; the kernel walks each block's contiguous
-    lane range (module comment above)."""
-    block_h, block_w = _BLOCK_H, _BLOCK_W
-    n_by = -(-H // block_h)
-    n_bx = -(-W // block_w)
-    n_bins = n_by * n_bx
-
-    @jax.jit
-    def hist(y, x, vals):
-        n = y.shape[0]
-        bin_id = jnp.where(
-            y >= 0.0,
-            jnp.floor(y / block_h) * n_bx + jnp.floor(x / block_w),
-            float(n_bins))
-        order = jnp.argsort(bin_id, stable=True)
-        offs = jnp.searchsorted(
-            bin_id[order], jnp.arange(n_bins + 1, dtype=jnp.float32),
-            side="left").astype(jnp.int32)
-
-        pad = (-n) % _LANES
-        # ONE (N, 2+C) row gather applies the permutation (a NEGATIVE
-        # result pins the alternative: 2+C separate 1-D gathers + stack
-        # measured 11.1 ms vs 3.7 — 1-D gathers pay per ELEMENT what the
-        # row gather pays once per 24-byte row); the cols.T relayout is
-        # the remaining prep cost (~1.2 ms at 183k lanes)
-        cols = jnp.concatenate([y[:, None], x[:, None], vals], axis=1)
-        cols = cols[order]
-        if pad:
-            cols = jnp.concatenate(
-                [cols, jnp.broadcast_to(
-                    jnp.asarray([-1.0] + [0.0] * (1 + C), jnp.float32),
-                    (pad, 2 + C))], axis=0)
-        n_tiles = cols.shape[0] // _LANES
-        # (2+C, n_tiles·8, 128): one DMA per tile fetches all columns
-        lanes = cols.T.reshape(2 + C, n_tiles * _T_ROWS, 128)
-
-        kern = functools.partial(
-            _binned_kernel, block_h=block_h, block_w=block_w, n_bx=n_bx,
-            C=C)
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(n_by, n_bx),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.ANY)],
-            out_specs=pl.BlockSpec(
-                (block_h, C * block_w),
-                lambda by, bx, offs: (by, bx),
-                memory_space=pltpu.VMEM),
-            scratch_shapes=[
-                pltpu.VMEM((2 + C, _T_ROWS, 128), jnp.float32),
-                pltpu.SemaphoreType.DMA(()),
-            ],
-        )
-        acc = pl.pallas_call(
-            kern,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct(
-                (n_by * block_h, n_bx * C * block_w), jnp.float32),
-            interpret=interpret,
-        )(offs, lanes)
-        # (n_by·bh, n_bx, C, bw) → (H, W, C)
-        out = acc.reshape(n_by * block_h, n_bx, C, block_w)
-        out = out.transpose(0, 1, 3, 2).reshape(
-            n_by * block_h, n_bx * block_w, C)
-        return out[:H, :W]
-
-    return hist
-
-
-def _banded_eligible(H, W, C):
-    return C * _BLOCK_W <= _MAX_CBW
-
-
-@jax.custom_vjp
 def image_gather(img, xi, yi, inb):
-    """Bounds-masked nearest gather: ``where(inb, img[yi, xi], 0)``.
+    """``where(inb, img[yi, xi], 0)``.
 
     ``img`` (H, W, C) float32; ``xi``/``yi`` int32 of any shape, already
     clipped into range by the caller; ``inb`` bool marks lanes whose
-    *unclipped* index was inside.  Differentiable w.r.t. ``img`` only;
-    the transpose is the MXU histogram kernel on TPU (module docstring).
+    *unclipped* index was inside.  Differentiable w.r.t. ``img``.
     """
     return jnp.where(inb[..., None], img[yi, xi], 0.0)
-
-
-def _fwd(img, xi, yi, inb):
-    return image_gather(img, xi, yi, inb), (img.shape, xi, yi, inb)
-
-
-def _bwd(res, ct):
-    shape, xi, yi, inb = res
-    H, W, C = shape
-    ct = jnp.where(inb[..., None], ct, 0.0)
-
-    def scatter_path(xi, yi, ct):
-        return jnp.zeros(shape, ct.dtype).at[yi, xi].add(ct)
-
-    # Platform dispatch happens at LOWERING time (lax.platform_dependent),
-    # not trace time: jax.default_backend() is a process-global that lies
-    # whenever a TPU-default process stages a computation onto CPU devices
-    # (the 8-virtual-device dryrun/mesh path — the kernel branch then
-    # either crashed the CPU lowering or silently shipped the wrong
-    # transpose).  Now each backend lowers its own branch.
-    if _hist_eligible(H, W, C):
-        def tpu_path(xi, yi, ct):
-            y = jnp.where(inb, yi, -1).astype(jnp.float32).reshape(-1)
-            x = xi.astype(jnp.float32).reshape(-1)
-            vals = ct.reshape(-1, C)
-            n = y.shape[0]
-            pad = (-n) % _LANES
-            if pad:
-                y = jnp.concatenate(
-                    [y, jnp.full((pad,), -1.0, jnp.float32)])
-                x = jnp.concatenate([x, jnp.zeros((pad,), jnp.float32)])
-                vals = jnp.concatenate(
-                    [vals, jnp.zeros((pad, C), jnp.float32)])
-            hist = _build_hist(H, W, C, interpret=False)
-            return hist(y, x, vals)
-
-        d_img = jax.lax.platform_dependent(xi, yi, ct, tpu=tpu_path,
-                                           default=scatter_path)
-    elif _banded_eligible(H, W, C):
-        # PTX_IMG_GRAD_COARSE=k (opt-in, k a power of two): accumulate
-        # the cotangent at k×k-COARSENED resolution through the VMEM MXU
-        # histogram (no sort, no permutation row gather, no banded
-        # kernel — the three per-row costs of the exact transpose), then
-        # spread each coarse bin's mass uniformly over its k² fine
-        # texels.  Per-bin TOTALS are exact; per-texel values are the
-        # bin average — a mip-preconditioned gradient, the estimator
-        # idea docs/perf_roofline.md's 3k floor proof names.  Default
-        # off: the exact binned transpose stays the production path.
-        k_env = int(os.environ.get("PTX_IMG_GRAD_COARSE", "0"))
-        Hc, Wc = -(-H // max(k_env, 1)), -(-W // max(k_env, 1))
-        if k_env > 1 and _hist_eligible(Hc, Wc, C):
-            def tpu_path(xi, yi, ct):
-                y = jnp.where(inb, yi // k_env, -1)
-                y = y.astype(jnp.float32).reshape(-1)
-                x = (xi // k_env).astype(jnp.float32).reshape(-1)
-                vals = ct.reshape(-1, C)
-                n = y.shape[0]
-                pad = (-n) % _LANES
-                if pad:
-                    y = jnp.concatenate(
-                        [y, jnp.full((pad,), -1.0, jnp.float32)])
-                    x = jnp.concatenate(
-                        [x, jnp.zeros((pad,), jnp.float32)])
-                    vals = jnp.concatenate(
-                        [vals, jnp.zeros((pad, C), jnp.float32)])
-                hist = _build_hist(Hc, Wc, C, interpret=False)
-                g = hist(y, x, vals) / float(k_env * k_env)
-                g = jnp.repeat(jnp.repeat(g, k_env, axis=0), k_env,
-                               axis=1)
-                return g[:H, :W]
-        else:
-            def tpu_path(xi, yi, ct):
-                y = jnp.where(inb, yi, -1).astype(jnp.float32).reshape(-1)
-                x = xi.astype(jnp.float32).reshape(-1)
-                hist = _build_banded_hist(H, W, C, interpret=False)
-                return hist(y, x, ct.reshape(-1, C))
-
-        d_img = jax.lax.platform_dependent(xi, yi, ct, tpu=tpu_path,
-                                           default=scatter_path)
-    else:
-        d_img = scatter_path(xi, yi, ct)
-    return d_img, None, None, None
-
-
-image_gather.defvjp(_fwd, _bwd)

@@ -1,27 +1,25 @@
-"""Table-lookup primitives with TPU-friendly transposes.
+"""Table-lookup primitives with one-hot-contraction transposes.
 
 ``table[idx]`` is a row gather; XLA transposes it to a scatter-add into
-the table — and scatters serialize on TPU.  For the small parameter
-tables this framework gathers from on every bounce (material constant
-rows, per-material ior, packed leaf-geometry rows: tens to hundreds of
-rows), the backward ablation (tools/bwd_ablate.py, round 2) showed those
-scatter transposes dominating the whole backward pass: 118 of 186 ms per
-bench chunk.
-
-:func:`table_lookup` keeps the cheap gather forward but hand-writes the
-backward as ``one_hot(idx)ᵀ @ ct`` — a dense (R, B) × (B, P) contraction
-the MXU eats at roofline instead of a serialized scatter.  Only suitable
-for SMALL row counts (the one-hot is materialized as (B, R) — keep
-R ≲ 1k); large tables (texture images) keep the scatter transpose.
+the table, where every lane of the wavefront lands on one of a few rows.
+For the small parameter tables this framework gathers from on every
+bounce (material constant rows, per-material ior, packed leaf-geometry
+rows: tens to hundreds of rows), :func:`table_lookup` keeps the cheap
+gather forward but hand-writes the backward as ``one_hot(idx)ᵀ @ ct`` —
+a dense (R, B) × (B, P) contraction instead of a many-way-colliding
+scatter.  Only suitable for SMALL row counts (the one-hot is
+materialized as (B, R) — keep R ≲ 1k); large tables (texture images)
+keep the scatter transpose.  Every contraction is ``Precision.HIGHEST``:
+a reduced-precision f32 matmul (bf16 passes, TF32) rounds each
+cotangent before accumulating.
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
-
-
-import functools
 
 
 @functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
@@ -30,19 +28,15 @@ def table_lookup_aug(table, aux, idx, onehot_fwd=False):
     differentiable ``table`` and (R, A) CONSTANT ``aux`` columns, fused
     so the whole per-lane fetch is ONE memory op.
 
-    Two reasons this exists (round 4, tools/mega_prof.py at L=256):
-    per-lane gathers cost per ROW, so separate fetches of narrow
-    constant columns each cost as much as the packed row; and a plain
-    ``concatenate`` before the gather leaves autodiff a (R, C+A)
-    ``split`` transpose that measured 0.66 ms/step — here the backward
+    Separate fetches of narrow constant columns would each be a per-lane
+    gather of their own, and a plain ``concatenate`` before the gather
+    leaves autodiff a (R, C+A) ``split`` transpose — here the backward
     slices the first C columns inside the custom VJP instead.
 
     ``onehot_fwd`` replaces the forward gather with
-    ``one_hot(idx) @ table`` on the MXU (precision HIGHEST — bf16
-    single-pass rounds the parameter values): a (B, R) x (R, C+A)
-    contraction is bandwidth-bound on the one-hot (~4RB bytes) instead
-    of latency-bound per row, a >5x win at B=65k, R=256.  Only worth it
-    when the gather is the bottleneck and R is small (one-hot is
+    ``one_hot(idx) @ table`` (precision HIGHEST): a (B, R) x (R, C+A)
+    contraction that reads the one-hot (~4RB bytes) instead of gathering
+    per row.  Only worth it when R is small (the one-hot is
     materialized)."""
     full = jnp.concatenate([table, aux], axis=1)
     return full[idx]
@@ -82,7 +76,7 @@ table_lookup_aug.defvjp(_aug_fwd, _aug_bwd)
 @jax.custom_vjp
 def table_lookup(table, idx):
     """``table[idx]`` for a (R, ...) table and integer ``idx`` of any
-    shape; gradient w.r.t. ``table`` accumulates via MXU matmul."""
+    shape; gradient w.r.t. ``table`` accumulates via a one-hot matmul."""
     return table[idx]
 
 
@@ -99,10 +93,10 @@ def _bwd(res, ct):
     idx_flat = idx.reshape(-1)
     ct_flat = ct.reshape(idx_flat.shape[0], payload)
     oh = jax.nn.one_hot(idx_flat, R, dtype=ct_flat.dtype)      # (B, R)
-    # HIGHEST is correctness: at default precision the MXU rounds each
-    # cotangent to bf16 before accumulating (~0.4% per term — the
-    # round-2 "1e-2 grad error" class); the one-hot side alone being
-    # exact does not save the values
+    # HIGHEST is correctness: at default precision a matmul unit rounds
+    # each cotangent (bf16 passes, or TF32 on GPU tensor cores) before
+    # accumulating — ~0.4% per term; the one-hot side alone being exact
+    # does not save the values
     d_table = jax.lax.dot_general(
         oh, ct_flat, (((0,), (0,)), ((), ())),
         precision=jax.lax.Precision.HIGHEST,

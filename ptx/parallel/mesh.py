@@ -2,10 +2,12 @@
 
 The reference scales two ways: a pthread pool over pixel blocks inside one
 process (``/root/reference/src/test.cpp:147-308``) and a TCP render farm
-across hosts (``test.cpp:520-793``).  The TPU-native counterpart is one
+across hosts (``test.cpp:520-793``).  The counterpart here is one
 mechanism: a ``jax.sharding.Mesh`` whose axes shard the *pixel* axis
-("tiles") and the *sample* axis ("samples"); XLA collectives over ICI
-replace both the worker queue and the ASCII pixel protocol.
+("tiles") and the *sample* axis ("samples"); XLA collectives over the
+device interconnect replace both the worker queue and the ASCII pixel
+protocol.  The mesh follows the algorithm, not a physical topology:
+every card of an NVLink host reaches every other at the same rate.
 
 Axis layout:
 

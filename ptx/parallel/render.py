@@ -11,7 +11,7 @@ shard) RNG keys.
 parallel training step: forward renders under the current scene params,
 the loss compares against a target image, and parameter gradients are
 ``psum``'d over *both* mesh axes (every device owns different pixels AND
-different samples) — the ICI allreduce the BASELINE scaling metric
+different samples) — the allreduce the BASELINE scaling metric
 measures, overlapped with the backward pass by XLA's scheduler.
 """
 
@@ -36,7 +36,7 @@ def _local_render(scene, cam, depth, spp_local, params, key, y0, rows,
     RNG across devices.  ``compact``/``manual_vjp`` pass through to
     :func:`trace_rays` — production renders run phase compaction and the
     custom-VJP bounce INSIDE shard_map, so tests/dryruns must be able to
-    force them at small per-device batches (VERDICT r2 #5)."""
+    force them at small per-device batches."""
     tile_idx = jax.lax.axis_index(TILE_AXIS)
     samp_idx = jax.lax.axis_index(SAMPLE_AXIS)
     k = rng.fold(key, tile_idx, samp_idx)

@@ -10,7 +10,7 @@ a toolchain:
 - :class:`WorkPool` — native task pool (C24's successor);
 - :class:`RenderFarmServer` / :class:`RenderFarmClient` — the TCP tile
   farm (C26/C27's successor); the server calls back into Python where the
-  JAX/TPU render runs.
+  JAX render runs.
 """
 
 from __future__ import annotations
@@ -193,7 +193,7 @@ class WorkPool:
 class RenderFarmServer:
     """Serves tile render requests over TCP (reference ``--server`` mode,
     test.cpp:722-778).  ``render_fn(x0, y0, w, h, spp, depth, seed)`` must
-    return a float32 (h, w, 3) array — typically a jitted TPU render.
+    return a float32 (h, w, 3) array — typically a jitted device render.
 
     ``chunk_rows > 0`` streams the tile incrementally: ``render_fn`` is
     called once per row band of at most ``chunk_rows`` rows and each band

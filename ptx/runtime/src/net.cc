@@ -12,7 +12,7 @@
 // instead of the reference's wroteBuffer dedupe).
 //
 // The server's per-tile "render" is a host callback (the Python side runs
-// the JAX/TPU render); the farm is pure orchestration, exactly the role
+// the JAX render); the farm is pure orchestration, exactly the role
 // the reference's pthread/TCP layer played around its C++ tracer.
 //
 // Frame layout (little-endian), protocol v2:

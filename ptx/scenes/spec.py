@@ -50,6 +50,7 @@ from ptx.integrate.camera import Camera
 from ptx.io import image as image_io
 from ptx.shade import textures as tx
 from ptx.shade.materials import Material
+from ptx.utils.device import on_host
 
 
 def parse_transform(spec):
@@ -173,6 +174,7 @@ class SceneSpec:
 
     # -- top level --------------------------------------------------------
 
+    @on_host
     def build(self):
         """Returns (world, camera, render_options)."""
         materials = {name: self.parse_material(m)

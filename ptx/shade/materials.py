@@ -109,20 +109,15 @@ def compile_material_table(materials_in_id_order, compiler: tx.TextureCompiler):
     def _mat_slot_lookup(params, mat_id, s):
         # Pre-gather the (M, 3) per-material slot table (tiny, STATIC
         # indices) so the wavefront pays ONE per-lane fetch instead of
-        # two chained gathers (index indirection + const row), and ride
-        # the MXU one-hot forward: the post-scan emission's ~5·B-lane
-        # fetch was a 0.61 ms/step per-ROW-latency gather at L=256
-        # (round-4 profile) while the (B', M) one-hot is ~0.03 ms of
-        # HBM.  Backward unchanged in spirit: one-hot MXU transpose to
-        # (M, 3), then the tiny static gather's scatter-add into const.
+        # two chained gathers (index indirection + const row), as a
+        # one-hot contraction over the M rows.  Backward: one-hot
+        # transpose to (M, 3), then the tiny static gather's scatter-add
+        # into const.
         table = params["const"][const_idx[s]]                # (M, 3)
         return table_lookup_aug(table, jnp.asarray(_no_aux), mat_id,
                                 True)
 
     def _slot_val(params, pos, mat_id, s):
-        # one-hot-matmul fetch + MXU transpose — the plain gather's
-        # scatter-add backward dominated the whole backward pass
-        # (tools/bwd_ablate.py)
         val = _mat_slot_lookup(params, mat_id, s)
         for mi, fn in dynamic[s]:
             dyn = fn(params, pos)
@@ -130,11 +125,8 @@ def compile_material_table(materials_in_id_order, compiler: tx.TextureCompiler):
         return val
 
     def eval_fn(params, pos, mat_id):
-        # ONE packed per-material row gather instead of six: TPU per-lane
-        # gathers cost per ROW, not per byte (~0.5 ms each at B=65k —
-        # the round-4 large-scene profile showed the separate slot/ior
-        # lookups as the dominant post-megasweep cost), so the 5 slots +
-        # ior pre-pack into a (M, 16) table with a STATIC (M,)-row
+        # ONE packed per-material row gather instead of six: the 5 slots
+        # + ior pre-pack into a (M, 16) table with a STATIC (M,)-row
         # gather per slot and the wavefront pays a single row lookup.
         packed = jnp.concatenate(
             [params["const"][const_idx[s]] for s in SLOTS]
@@ -153,9 +145,8 @@ def compile_material_table(materials_in_id_order, compiler: tx.TextureCompiler):
         return out
 
     def eval_emissive(params, pos, mat_id):
-        """Emissive slot only — the fused bounce kernel evaluates every
-        other slot in-SMEM (ptx.ops.bounce_kernel); emission is the one
-        slot that may gather textures and so stays in XLA."""
+        """Emissive slot only — trace_rays evaluates emission post-scan,
+        apart from the other slots the bounce consumes."""
         return _slot_val(params, pos, mat_id, "emissive")
 
     # --- terminal dynamic-emissive materials ("sky shape") -------------
@@ -167,9 +158,8 @@ def compile_material_table(materials_in_id_order, compiler: tx.TextureCompiler):
     # trace_rays evaluate such a material's dynamic emissive chain on one
     # selected lane per path instead of every (bounce, path) lane.  That
     # is the load-bearing property for reference-scale sky probes (3k
-    # equirect, test.cpp:123): their image gather/scatter cost is per
-    # LANE, and the one-hot MXU histogram transpose is flop-infeasible at
-    # that image area (O(B·H·W) — see ptx.ops.imagegrad).
+    # equirect, test.cpp:123): their image gather and its scatter-add
+    # transpose cost per LANE.
     def _const_zero(texn):
         return (isinstance(texn, tx.Constant)
                 and not np.any(np.asarray(texn.color, np.float32)))
@@ -200,19 +190,15 @@ def compile_material_table(materials_in_id_order, compiler: tx.TextureCompiler):
             val = jnp.where(is_term[..., None], 0.0, val)
         return val
 
-    # metadata for the fused bounce kernel's SMEM packing: which const-
-    # table row feeds each (material, slot), and which slots have any
-    # position-dependent (non-packable) textures
+    # metadata for trace_rays' emission routing: which const-table row
+    # feeds each (material, slot), and which slots have any
+    # position-dependent textures
     eval_fn.const_idx = const_idx
     eval_fn.dynamic_slots = {s: [mi for mi, _ in dynamic[s]] for s in SLOTS}
     eval_fn.n_materials = M
     eval_fn.eval_emissive = eval_emissive
     eval_fn.eval_emissive_base = eval_emissive_base
     eval_fn.terminal_dynamic_emissive = terminal_dynamic_emissive
-    # chain specs (ptx.shade.textures compile attaches .spec) for the
-    # fused emission kernel's eligibility check (ptx.ops.emission_kernel)
-    eval_fn.emissive_dynamic_specs = [
-        (mi, getattr(fn, "spec", None)) for mi, fn in dynamic["emissive"]]
 
     return {"ior": iors}, eval_fn
 

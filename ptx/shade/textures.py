@@ -124,20 +124,12 @@ class TextureCompiler:
         return self._image_ids[key]
 
     def compile(self, tex):
-        """Returns ``fn(params, pos) -> (..., 3)``.
-
-        Each returned closure carries a ``.spec`` attribute — a nested
-        tuple describing the chain structure and assigned param indices —
-        so downstream compilers (the fused emission kernel,
-        ptx.ops.emission_kernel) can recognize supported chains without
-        re-walking texture trees."""
+        """Returns ``fn(params, pos) -> (..., 3)``."""
         if isinstance(tex, Constant):
             idx = len(self.params["const"])
             self.params["const"].append(
                 np.broadcast_to(np.asarray(tex.color, np.float32), (3,)).copy())
-            fn = lambda p, pos: jnp.broadcast_to(p["const"][idx], pos.shape)
-            fn.spec = ("const", idx)
-            return fn
+            return lambda p, pos: jnp.broadcast_to(p["const"][idx], pos.shape)
 
         if isinstance(tex, ImageTex):
             img_id = self._image_id(tex.image)
@@ -152,7 +144,6 @@ class TextureCompiler:
                 xi = jnp.floor(x * w).astype(jnp.int32)
                 yi = jnp.floor(y * h).astype(jnp.int32)
                 return _get_pixel(img, xi, yi, alpha)
-            image_fn.spec = ("image", img_id, alpha)
             return image_fn
 
         if isinstance(tex, Skybox):
@@ -166,7 +157,6 @@ class TextureCompiler:
             def skybox_fn(p, pos):
                 stack = jnp.stack([p["images"][i] for i in ids])  # (6, H, W, 4)
                 return _skybox_lookup(stack, pos, alpha)
-            skybox_fn.spec = ("skybox", tuple(ids), alpha)
             return skybox_fn
 
         if isinstance(tex, TransformedTex):
@@ -174,30 +164,22 @@ class TextureCompiler:
             self.params["tex_xform"].append(
                 np.asarray(tex.transform, np.float32).reshape(3, 4))
             child = self.compile(tex.child)
-            fn = lambda p, pos: child(p, linalg.apply(p["tex_xform"][idx], pos))
-            fn.spec = ("xform", idx, child.spec)
-            return fn
+            return lambda p, pos: child(p, linalg.apply(p["tex_xform"][idx], pos))
 
         if isinstance(tex, MirrorBall):
             child = self.compile(tex.child)
-            fn = lambda p, pos: child(p, _mirror_ball_uv(pos))
-            fn.spec = ("mirror", child.spec)
-            return fn
+            return lambda p, pos: child(p, _mirror_ball_uv(pos))
 
         if isinstance(tex, SphericalCoords):
             child = self.compile(tex.child)
-            fn = lambda p, pos: child(p, _spherical_uv(pos))
-            fn.spec = ("spherical", child.spec)
-            return fn
+            return lambda p, pos: child(p, _spherical_uv(pos))
 
         if isinstance(tex, Multiply):
             idx = len(self.params["factor"])
             self.params["factor"].append(
                 np.broadcast_to(np.asarray(tex.factor, np.float32), (3,)).copy())
             child = self.compile(tex.child)
-            fn = lambda p, pos: child(p, pos) * p["factor"][idx]
-            fn.spec = ("mul", idx, child.spec)
-            return fn
+            return lambda p, pos: child(p, pos) * p["factor"][idx]
 
         if isinstance(tex, Log):
             child = self.compile(tex.child)
@@ -207,7 +189,6 @@ class TextureCompiler:
                 safe = jnp.maximum(v, 1e-30)
                 return jnp.where(v <= 1e-30, 0.0,
                                  0.5 + jnp.log2(safe) / 256.0)
-            log_fn.spec = ("log", child.spec)
             return log_fn
 
         raise TypeError(f"unknown texture node {type(tex)!r}")
@@ -223,17 +204,15 @@ class TextureCompiler:
 
 
 # ---------------------------------------------------------------------------
-# lookup kernels
+# texel lookups
 # ---------------------------------------------------------------------------
 
 def _get_pixel(img, xi, yi, alpha: bool):
     """Bounds-checked nearest lookup; outside → black / alpha 0
     (image.cpp:366-396).  Returns (..., 3); alpha broadcast to gray.
 
-    The gather goes through ptx.ops.imagegrad.image_gather so its
-    transpose is the MXU histogram kernel instead of a TPU scatter-add
-    (the dominant backward cost once everything else was fused —
-    tools/step_breakdown.py)."""
+    The gather goes through ptx.ops.imagegrad.image_gather (one masked
+    gather; its transpose is a scatter-add into the image)."""
     from ptx.ops.imagegrad import image_gather
 
     h, w = img.shape[0], img.shape[1]
@@ -280,8 +259,8 @@ def _skybox_lookup(stack, v, alpha: bool):
     inb = (xi >= 0) & (xi < wid) & (yi >= 0) & (yi < h)
     xc = jnp.clip(xi, 0, wid - 1)
     yc = jnp.clip(yi, 0, h - 1)
-    # fold the face index into the row index so the 6-face gather shares
-    # image_gather's histogram transpose (stack viewed as (6·H, W, 4))
+    # fold the face index into the row index so the 6-face lookup is one
+    # image_gather (stack viewed as (6·H, W, 4))
     from ptx.ops.imagegrad import image_gather
     flat = stack.reshape(6 * h, wid, stack.shape[3])
     texel = image_gather(flat, xc, face * h + yc, inb & ~zero_dir)

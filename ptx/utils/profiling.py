@@ -6,8 +6,8 @@ The reference's only signals are ``cout`` block logs and a dot spinner
 
 - :class:`Meter` — rays/s, samples-completed, tiles-done counters with
   periodic structured (JSON-line) emission;
-- :func:`trace` — context manager around ``jax.profiler`` for on-TPU
-  kernel timelines (feeds the speed-of-light analysis);
+- :func:`trace` — context manager around ``jax.profiler`` for on-device
+  kernel timelines;
 - :func:`log` — timestamped JSON-line structured logging.
 """
 

@@ -31,7 +31,7 @@ CONFIGS = {
     "config3": builders.baseline_config3,
     # config4 = HDR environment + image-textured material: the ONE
     # config exercising the image-gradient/texture-transform stack that
-    # configs 1-3 never touch (VERDICT r2 #7)
+    # configs 1-3 never touch
     "config4": builders.baseline_config4,
 }
 

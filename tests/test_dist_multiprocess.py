@@ -5,7 +5,7 @@ JAX_COORDINATOR env convention), run a sharded render and one
 results exactly — the JAX-native successor of the reference's manual
 --server/--client two-host workflow (/root/reference/src/test.cpp:520-793).
 
-VERDICT round-1 missing #3: this was the only multi-host-shaped code path
+This was the only multi-host-shaped code path
 with zero coverage.
 """
 

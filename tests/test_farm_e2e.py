@@ -79,7 +79,7 @@ def test_farm_serves_real_renders():
 
 @pytest.mark.slow
 def test_farm_adaptive_tiles_beat_dense_at_equal_budget():
-    """VERDICT r3 #6: the farm path must compose with adaptive sampling —
+    """The farm path must compose with adaptive sampling —
     in the reference every farmed block IS an adaptive block (the server
     runs the subdivision renderer per request, test.cpp:503-504,708).
     Serve tiles through render_adaptive_tile at the same per-tile budget
@@ -92,7 +92,7 @@ def test_farm_adaptive_tiles_beat_dense_at_equal_budget():
     # class of scene the subdivision sampler exists for) — measured
     # dense 0.097 vs adaptive 0.053 RMSE at this budget; diffuse-uniform
     # configs split roughly evenly and prove nothing
-    scene = compile_scene(make_world(), pallas=False)
+    scene = compile_scene(make_world())
     cam = Camera(24, 24)
     depth, spp = 5, 8
 

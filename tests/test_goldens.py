@@ -23,7 +23,6 @@ CONFIGS = {
     "config2": builders.baseline_config2,
     "config3": builders.baseline_config3,
     # config4 pins the image-gradient/texture-transform stack
-    # (VERDICT r2 #7)
     "config4": builders.baseline_config4,
 }
 

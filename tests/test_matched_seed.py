@@ -1,4 +1,4 @@
-"""Matched-seed LCG parity as a committed regression gate (VERDICT r3 #4b).
+"""Matched-seed LCG parity as a committed regression gate.
 
 tools/matched_seed.py proved whole-pixel parity against the LIVE
 reference binary: with the bit-exact ``ReferenceLCG`` seeded 0 and the

@@ -72,7 +72,7 @@ def test_train_step_decreases_loss(scene):
 
 
 def test_compacted_manual_vjp_sharded_digest(scene):
-    """VERDICT r2 #5: the production trace configuration — phase
+    """The production trace configuration — phase
     compaction + the decision-frozen manual-VJP bounce — must produce the
     SAME image and the SAME parameter gradients inside shard_map as an
     explicit per-(tile, sample) loop of bare trace_rays calls.  This
@@ -160,15 +160,10 @@ def test_compacted_manual_vjp_sharded_digest(scene):
 
 
 def test_mega_shaped_scene_sharded():
-    """VERDICT r4 #2a: the large-scene production semantics under
-    shard_map.  The megasweep kernel itself cannot lower on the CPU mesh,
-    but the jnp fixpoint sweep is its cell-for-cell semantic twin
-    (tests/test_large_scenes.py) — so the mesh test forces
-    ``sweep_mode="fixpoint"`` on a mega-shaped COMPOSED scene (stress
-    spheres under the equirect image sky) and pins sharded-vs-unsharded
-    loss AND grads, compaction + manual VJP on.  The kernel's own
-    under-shard_map lowering is gated on hardware
-    (tools/mega_shard_check.py)."""
+    """The large-scene production semantics under shard_map: the
+    fixpoint union sweep on a COMPOSED scene (stress spheres under the
+    equirect image sky), sharded-vs-unsharded loss AND grads pinned,
+    compaction + manual VJP on."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
     from ptx.core import rng
@@ -180,9 +175,8 @@ def test_mega_shaped_scene_sharded():
     from ptx.scenes.builders import procedural_sky_image, stress_spheres
 
     img = procedural_sky_image(24, 48)
-    scene = compile_scene(stress_spheres(16, sky_image=img), pallas=False)
-    scene.hit_fn = compile_fast_hit(scene.plan, params_ref=scene.params,
-                                    sweep=True, sweep_mode="fixpoint")
+    scene = compile_scene(stress_spheres(16, sky_image=img))
+    scene.hit_fn = compile_fast_hit(scene.plan, sweep=True)
     scene._manual_bounce = None
 
     tiles, samples = 4, 2
@@ -257,8 +251,8 @@ def test_mega_shaped_scene_sharded():
 
 
 def test_flagship_image_stack_sharded():
-    """VERDICT r3 #2: the FLAGSHIP stack — image equirect sky, sky-select
-    post-scan emission, the imagegrad custom-VJP gather — must produce the
+    """The FLAGSHIP stack — image equirect sky, sky-select post-scan
+    emission, the image gather and its scatter-add transpose — must produce the
     same loss and the same parameter gradients (INCLUDING the sky-image
     cotangent) inside shard_map as an unsharded replay with
     ``compact=True, manual_vjp=True``.  The const-sky digest test above
@@ -274,7 +268,7 @@ def test_flagship_image_stack_sharded():
     from ptx.parallel.render import _local_render, make_train_step
     from ptx.scenes.builders import make_world
 
-    scene = compile_scene(make_world(), pallas=False)
+    scene = compile_scene(make_world())
     assert scene.params["images"], "flagship scene must carry an image sky"
 
     tiles, samples = 4, 2
@@ -374,7 +368,7 @@ def test_params_checkpoint_roundtrip(tmp_path, scene):
 def test_adaptive_checkpoint_resume(tmp_path, scene):
     """Interrupt the adaptive render after round 1, resume from the
     checkpoint, and get EXACTLY the uninterrupted result (the refinement
-    sequence is deterministic in (state, key)).  VERDICT r2 #8."""
+    sequence is deterministic in (state, key))."""
     import jax.numpy as jnp
     from ptx.integrate.adaptive import render_adaptive
     from ptx.parallel.checkpoint import AdaptiveCheckpoint

@@ -2,7 +2,7 @@
 hot path rides (material rows, replay leaf rows, emission slots).
 
 Forward must equal plain ``table[idx]`` bit-for-bit in BOTH forward
-modes (the one-hot MXU fetch at HIGHEST reproduces f32 exactly: each
+modes (the one-hot matmul fetch at HIGHEST reproduces f32 exactly: each
 output element is a single 1.0·x product), and the hand-written
 backward must match autodiff of the plain gather.
 """

@@ -1,5 +1,5 @@
 """Equal-ray-budget dense vs adaptive comparison at the reference's full
-frame config (1920×1080, demo scene) — VERDICT round-1 item #9.
+frame config (1920×1080, demo scene).
 
 Ground truth = dense render at ``truth_spp``.  Dense candidate = uniform
 ``budget`` spp.  Adaptive candidate = same total ray budget, concentrated
@@ -19,8 +19,8 @@ def main():
     import numpy as np
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ptx-jax-cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ptx.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from ptx.core import rng
     from ptx.integrate.adaptive import render_adaptive
@@ -57,12 +57,15 @@ def main():
 
     # adaptive: base 8 spp everywhere + 4 rounds × 1/8 of pixels × 16 spp
     # = 8 + 4·2 = 16 average spp — the same ray budget as dense.
-    # Runs THROUGH the durable checkpoint path (VERDICT r2 #8): every
+    # Runs THROUGH the durable checkpoint path: every
     # round lands in AdaptiveCheckpoint, and the result is re-derived by
     # resuming from the round-2 snapshot to prove resume ≡ uninterrupted
     # at full frame scale.
     from ptx.parallel.checkpoint import AdaptiveCheckpoint
-    ck_path = "/tmp/adaptive_eval_ck.npz"
+    ck_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".work")
+    os.makedirs(ck_dir, exist_ok=True)
+    ck_path = os.path.join(ck_dir, "adaptive_eval_ck.npz")
     if os.path.exists(ck_path):
         os.remove(ck_path)
     snapshots = {}

@@ -64,8 +64,8 @@ def run(spp_chunk, rows, manual, remat=False, width=512, depth=16):
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ptx-jax-cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ptx.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from ptx.integrate.camera import Camera
     from ptx.integrate.trace import compile_scene

@@ -1,12 +1,10 @@
 """Compaction-schedule sweep at the current cost structure.
 
-The schedule was last tuned in round 2 (pre emission-policy change, at
-131k-ray chunks); round 3 moved the chunk shape to 65k rays and the
-emission to sky-select, so the live-fraction/cost trade may have moved.
-Measures the headline chunk fwd+bwd (median of 3 chained ≥2 s regions)
-per schedule; the winner must then pass the RMSE guard (round-2
-methodology: equal-spp RMSE vs compact=False within noise) before
-becoming the default.
+The live-fraction/cost trade behind ``trace._COMPACT_SCHEDULE`` moves
+with the chunk shape, the emission path and the device.  Measures the
+headline chunk fwd+bwd (median of 3 chained ≥2 s regions) per schedule;
+the winner must then pass the RMSE guard (equal-spp RMSE vs
+compact=False within noise) before becoming the default.
 
 Usage: python tools/compact_sweep.py
 """
@@ -33,8 +31,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ptx-jax-cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ptx.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import ptx.integrate.trace as tr
     from ptx.core import rng as prng
     from ptx.integrate.camera import Camera, sample_rays

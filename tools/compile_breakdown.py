@@ -1,16 +1,13 @@
-"""Flagship cold-compile breakdown (VERDICT r4 #6).
+"""Flagship cold-compile breakdown: splits bench.py's `bench_compile`
+wall into its stages for the production grad chunk (512² demo, H/4
+rows, depth 16, compact):
 
-bench.py's `bench_compile` was 31.1 s at round 4 (target ≤ 20 s).  This
-tool splits that wall into its actual stages for the production grad
-chunk (512² demo, H/4 rows, depth 16, compact):
-
-  scene_build   — compile_scene (tape + kernels BUILT, not lowered)
+  scene_build   — compile_scene (tape + tables built, nothing lowered)
   trace_lower   — jax trace + StableHLO lowering (host CPU)
-  backend       — XLA+Mosaic compilation (remote compile service)
+  backend       — XLA compilation for the device
 
-Run with a COLD cache to see the real first-user cost:
-  rm -rf /tmp/ptx-jax-cache-cold
-  python tools/compile_breakdown.py --cache /tmp/ptx-jax-cache-cold
+Run with an empty cache directory to see the real first-user cost:
+  JAX_COMPILATION_CACHE_DIR=$(mktemp -d) python tools/compile_breakdown.py
 """
 
 import argparse
@@ -24,7 +21,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cache", default="/tmp/ptx-jax-cache")
     ap.add_argument("--depth", type=int, default=16)
     ap.add_argument("--fwd-only", action="store_true")
     args = ap.parse_args()
@@ -32,8 +28,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", args.cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ptx.utils.compile_cache import enable_compile_cache
+    cache = enable_compile_cache()
     from ptx.core import rng as prng
     from ptx.integrate.camera import Camera, sample_rays
     from ptx.integrate.trace import compile_scene, trace_rays
@@ -81,7 +77,7 @@ def main():
         "backend_compile_s": round(t_backend, 2),
         "first_exec_s": round(t_first, 2),
         "stablehlo_chars": hlo_bytes,
-        "cache": args.cache,
+        "cache": cache,
     }))
 
 

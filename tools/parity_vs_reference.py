@@ -1,7 +1,7 @@
 """Golden parity harness: ptx vs the ACTUAL reference binary, low noise.
 
 Builds the reference from source in SERVER_ONLY mode (no SDL) with three
-noise-removal patches (VERDICT round-1 missing #1):
+noise-removal patches:
 
 - ``rayCount`` 10 → 100 (test.cpp:34) — the reference's own samples;
 - ``minimumColorDelta`` → 0 and ``maximumSampleSize`` → 1
@@ -19,7 +19,7 @@ Results belong in BASELINE.md ("Golden parity").
 
 Usage (needs g++, libpng headers; ~30-60 min dominated by the reference's
 diffuse blocks):
-    python tools/parity_vs_reference.py [--workdir /tmp/refbuild]
+    python tools/parity_vs_reference.py [--workdir .work/refbuild]
 """
 
 from __future__ import annotations
@@ -148,7 +148,9 @@ def fetch_block(x, y, size, port=12346, timeout=7200):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workdir", default="/tmp/refbuild")
+    ap.add_argument("--workdir", default=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".work", "refbuild"))
     ap.add_argument("--spp", type=int, default=4096,
                     help="total ptx samples per pixel (accumulated). The "
                     "single-path estimator needs ~4k spp for <=2-3%% "
